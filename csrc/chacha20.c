@@ -3,7 +3,7 @@
  * Native counterpart of the reference's ChaCha20Stream CSPRNG dependency
  * (/root/reference/src/ring/sampler.jl uses ChaChaCiphers.ChaCha20Stream
  * for all secret material).  Compiled to a shared object and driven via
- * ctypes from mktfhe_tpu/native/chacha.py; a pure-Python fallback keeps
+ * ctypes from mktfhe/native/chacha.py; a pure-Python fallback keeps
  * the package importable without a C toolchain.
  */
 

@@ -30,7 +30,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from mktfhe_tpu.schemes.presets import ALL_PRESETS  # noqa: E402
+from mktfhe.schemes.presets import ALL_PRESETS  # noqa: E402
 
 U32 = np.uint32
 MOD = 2.0**32
@@ -169,7 +169,7 @@ class Party:
         self.ksk_b = (msg - asum + noise.astype(np.uint64)).astype(U32)
 
 
-def blind_rotate(tildea, acc_b, parties, tcrs, tpub, tmono, ring, params):
+def blind_rotate(tildea, acc_b, parties, tcrs, pub_hat_t, tmono, ring, params):
     """CCS hybrid-product rotation (bootstrapping.jl:234-328), batched
     over gates.  tildea: [g, k, n] int; acc_b: [g, N] u32 test vector.
     Returns (b [g,N], a [g,k,N]) u32."""
@@ -194,7 +194,7 @@ def blind_rotate(tildea, acc_b, parties, tcrs, tpub, tmono, ring, params):
             ad = balanced_decomp_ref(a[:, :cnt], l, log_b)  # [l,g,cnt,N]
             ta = ring.fwd(ad.astype(np.uint64).astype(U32))
             u_a = np.einsum("lgjm,lm->gjm", ta, tbrk_d[i])
-            tv = np.einsum("lgjm,jlm->gjm", ta, tpub[:cnt])
+            tv = np.einsum("lgjm,jlm->gjm", ta, pub_hat_t[:cnt])
             v = ring.inv(np.concatenate([tv0[:, None], tv], axis=1))
             # re-decompose v (v0 + cnt rows) and contract against f
             vd = balanced_decomp_ref(v, l, log_b)  # [l, g, cnt+1, N]
@@ -249,7 +249,7 @@ def run(k, n_gates, batch, seed=0):
     t0 = time.time()
     parties = [Party(rng, crs, params) for _ in range(k)]
     tcrs = ring.fwd(crs)
-    tpub = ring.fwd(np.stack([p.pub_b for p in parties]))
+    pub_hat_t = ring.fwd(np.stack([p.pub_b for p in parties]))
     # monomial table: tmono[t] = FFT(X^t - 1), t in [0, 2N) (t=0 -> 0)
     monos = np.zeros((2 * N, N), dtype=np.int64)
     for t in range(1, 2 * N):
@@ -310,7 +310,7 @@ def run(k, n_gates, batch, seed=0):
             if (tb // N) % 2:
                 rolled = -rolled
             acc_b[gi] = rolled.astype(np.uint64).astype(U32)
-        rb, ra = blind_rotate(tilde_a, acc_b, parties, tcrs, tpub, tmono, ring, params)
+        rb, ra = blind_rotate(tilde_a, acc_b, parties, tcrs, pub_hat_t, tmono, ring, params)
         ob, oa = keyswitch(rb, ra, parties, params)
 
         # phase error vs ideal +-1/8 (utils/noise.py convention)

@@ -21,17 +21,17 @@ import numpy as np
 
 jax.config.update("jax_enable_x64", True)
 
-from mktfhe_tpu.schemes import ccs, cggi, kms, lmss
-from mktfhe_tpu.schemes.gates import (
+from mktfhe.schemes import ccs, cggi, kms, lmss
+from mktfhe.schemes.gates import (
     gate_affine,
     lwe_decrypt_bit,
     lwe_decrypt_bit_mk,
     lwe_encrypt_bit,
     lwe_ith_encrypt_bit,
 )
-from mktfhe_tpu.schemes.params import BlockParams, CcsParams, CggiParams
-from mktfhe_tpu.schemes.presets import ALL_PRESETS
-from mktfhe_tpu.utils.noise import noise_report
+from mktfhe.schemes.params import BlockParams, CcsParams, CggiParams
+from mktfhe.schemes.presets import ALL_PRESETS
+from mktfhe.utils.noise import noise_report
 
 
 def run(name, params, batch):

@@ -18,15 +18,15 @@ import numpy as np
 
 jax.config.update("jax_enable_x64", True)
 
-from mktfhe_tpu.ciphertext.keys import binary_lwe_key, binary_ring_key, ternary_ring_key
-from mktfhe_tpu.ciphertext.rlwe import gadget_gvec, rlev_encrypt
-from mktfhe_tpu.ciphertext.unienc import UniEnc, gen_b, _mul_ring_key
-from mktfhe_tpu.ring.sampler import gaussian_torus
-from mktfhe_tpu.schemes import ccs
-from mktfhe_tpu.schemes.common import build_ksk
-from mktfhe_tpu.schemes.gates import gate_affine, lwe_decrypt_bit_mk, lwe_ith_encrypt_bit
-from mktfhe_tpu.schemes.presets import ALL_PRESETS
-from mktfhe_tpu.utils.noise import noise_report
+from mktfhe.ciphertext.keys import binary_lwe_key, binary_ring_key, ternary_ring_key
+from mktfhe.ciphertext.rlwe import gadget_gvec, rlev_encrypt
+from mktfhe.ciphertext.unienc import UniEnc, gen_b, _mul_ring_key
+from mktfhe.ring.sampler import gaussian_torus
+from mktfhe.schemes import ccs
+from mktfhe.schemes.common import build_ksk
+from mktfhe.schemes.gates import gate_affine, lwe_decrypt_bit_mk, lwe_ith_encrypt_bit
+from mktfhe.schemes.presets import ALL_PRESETS
+from mktfhe.utils.noise import noise_report
 
 
 def unienc_encrypt_s(rng, msg, crs, key, s_d, s_f, l, log_b, ctx):

@@ -27,7 +27,7 @@ import sys
 
 sys.path.insert(0, ".")
 
-from mktfhe_tpu.schemes.presets import ALL_PRESETS  # noqa: E402
+from mktfhe.schemes.presets import ALL_PRESETS  # noqa: E402
 
 
 def ccs_predicted_std_bits(params) -> dict:

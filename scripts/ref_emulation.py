@@ -40,7 +40,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from mktfhe_tpu.schemes.presets import ALL_PRESETS  # noqa: E402
+from mktfhe.schemes.presets import ALL_PRESETS  # noqa: E402
 
 U32 = np.uint32
 U64 = np.uint64
@@ -597,8 +597,8 @@ def kms_phase2_party(acc, levkey, p1, party, parties, crs, ring, params):
     v0 = -np.einsum("lgm,lm->gm", tyd[:, :, 0], tcrs)
     v = v0
     if p1 > 1:
-        tpub = ring.fwd(np.stack([pt.pub_b for pt in parties[: p1 - 1]]))
-        v = v + np.einsum("lgpm,plm->gm", tyd[:, :, 1:], tpub)
+        pub_hat_t = ring.fwd(np.stack([pt.pub_b for pt in parties[: p1 - 1]]))
+        v = v + np.einsum("lgpm,plm->gm", tyd[:, :, 1:], pub_hat_t)
     v_t = ring.inv(v)  # [g, N]
     vd = balanced_decomp_ref(v_t, p.l_uni, p.log_b_uni, 64)
     tvd = ring.fwd_signed(vd)
@@ -800,8 +800,8 @@ if __name__ == "__main__":
     elif which.startswith("kms"):
         run_kms(int(which[3:]), n_gates, batch)
     elif which == "tiny-kms":
-        from mktfhe_tpu.schemes.presets import TEST_PRESETS
+        from mktfhe.schemes.presets import TEST_PRESETS
 
-        run_kms(2, 16, 16, preset=TEST_PRESETS["TinyKMS2partyMX"])
+        run_kms(2, 16, 16, preset=TEST_PRESETS["TinyKMS2partyN128"])
     else:
         raise SystemExit(f"unknown target {which}")

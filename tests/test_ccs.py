@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mktfhe_tpu.schemes import ccs
-from mktfhe_tpu.schemes.gates import (
+from mktfhe.schemes import ccs
+from mktfhe.schemes.gates import (
     CLEAR_OPS,
     GATE_IDS,
     gate_affine,
     lwe_decrypt_bit_mk,
     lwe_ith_encrypt_bit,
 )
-from mktfhe_tpu.schemes.params import CcsParams
+from mktfhe.schemes.params import CcsParams
 
 TINY = CcsParams(
     n=8, alpha=16.0, f=8, log_d=2, big_n=64, beta=4.0, l_uni=3, log_b_uni=8, k=2

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mktfhe_tpu.schemes import cggi
-from mktfhe_tpu.schemes.gates import (
+from mktfhe.schemes import cggi
+from mktfhe.schemes.gates import (
     CLEAR_OPS,
     GATE_IDS,
     gate_affine,
@@ -18,7 +18,7 @@ from mktfhe_tpu.schemes.gates import (
     lwe_encrypt_bit,
     not_gate,
 )
-from mktfhe_tpu.schemes.params import CggiParams
+from mktfhe.schemes.params import CggiParams
 
 TINY = CggiParams(
     n=16, alpha=16.0, f=8, log_d=2, big_n=64, k=1, beta=16.0, l_gsw=3, log_b_gsw=8

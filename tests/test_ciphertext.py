@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mktfhe_tpu.ciphertext import (
+from mktfhe.ciphertext import (
     balanced_decomp,
     binary_lwe_key,
     binary_ring_key,
@@ -23,8 +23,8 @@ from mktfhe_tpu.ciphertext import (
     rlwe_phase,
     unbalanced_decomp,
 )
-from mktfhe_tpu.ring import from_crt, inv_ntt
-from mktfhe_tpu.ring.context import make_ring_ctx
+from mktfhe.ring import from_crt, inv_ntt
+from mktfhe.ring.context import make_ring_ctx
 
 
 def _signed(x):

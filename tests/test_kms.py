@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mktfhe_tpu.schemes import kms
-from mktfhe_tpu.schemes.gates import (
+from mktfhe.schemes import kms
+from mktfhe.schemes.gates import (
     CLEAR_OPS,
     GATE_IDS,
     gate_affine,
     lwe_decrypt_bit_mk,
     lwe_ith_encrypt_bit,
 )
-from mktfhe_tpu.schemes.params import KmsBlockParams, KmsParams
+from mktfhe.schemes.params import KmsBlockParams, KmsParams
 
 TINY = KmsParams(
     n=8, alpha=16.0, f=8, log_d=2, big_n=64, beta=4.0,

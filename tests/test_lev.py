@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mktfhe_tpu.ciphertext.gsw import (
+from mktfhe.ciphertext.gsw import (
     external_product_hat,
     rgsw_add,
     rgsw_encrypt,
@@ -15,8 +15,8 @@ from mktfhe_tpu.ciphertext.gsw import (
     rgsw_to_hat,
     rlwe_decomp_hat,
 )
-from mktfhe_tpu.ciphertext.keys import binary_lwe_key, binary_ring_key
-from mktfhe_tpu.ciphertext.lev import (
+from mktfhe.ciphertext.keys import binary_lwe_key, binary_ring_key
+from mktfhe.ciphertext.lev import (
     Lev,
     gsw_add,
     gsw_encrypt,
@@ -26,14 +26,14 @@ from mktfhe_tpu.ciphertext.lev import (
     lev_ith_encrypt,
     lev_sub,
 )
-from mktfhe_tpu.ciphertext.lwe import Lwe, phase
-from mktfhe_tpu.ciphertext.rlwe import (
+from mktfhe.ciphertext.lwe import Lwe, phase
+from mktfhe.ciphertext.rlwe import (
     gadget_gvec,
     rlwe_encrypt_msg,
     rlwe_phase,
 )
-from mktfhe_tpu.ring import from_crt, inv_ntt
-from mktfhe_tpu.ring.context import make_ring_ctx
+from mktfhe.ring import from_crt, inv_ntt
+from mktfhe.ring.context import make_ring_ctx
 
 L, LOG_B = 3, 8
 

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mktfhe_tpu.schemes import lmss
-from mktfhe_tpu.schemes.gates import (
+from mktfhe.schemes import lmss
+from mktfhe.schemes.gates import (
     CLEAR_OPS,
     GATE_IDS,
     gate_affine,
     lwe_decrypt_bit,
     lwe_encrypt_bit,
 )
-from mktfhe_tpu.schemes.params import BlockParams
+from mktfhe.schemes.params import BlockParams
 
 TINY = BlockParams(
     d=8, ell=2, alpha=16.0, f=8, log_d=2, big_n=64, k=1, beta=16.0,

@@ -1,4 +1,4 @@
-"""mx-NTT (MXU-factorized negacyclic NTT): exactness of the jnp reference.
+"""mx-NTT (matmul-factored negacyclic NTT): exactness of the jnp reference.
 
 The mx transform must be the standard negacyclic NTT up to a fixed
 permutation of evaluation points: we check the exact inverse property and
@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mktfhe_tpu.kernels.mx_ntt import (
+from mktfhe.kernels.mx_ntt import (
     NK,
     from_mx_order,
     mx_fwd_ref,
@@ -19,8 +19,8 @@ from mktfhe_tpu.kernels.mx_ntt import (
     mx_plan,
     to_mx_order,
 )
-from mktfhe_tpu.ring.modring import PRIMES, _root_of_unity
-from mktfhe_tpu.ring.ntt import fwd_ntt, inv_ntt, make_plan
+from mktfhe.ring.modring import PRIMES, _root_of_unity
+from mktfhe.ring.ntt import fwd_ntt, inv_ntt, make_plan
 
 
 @pytest.mark.parametrize("n,npr", [(2048, 3), (1024, 2), (256, 1)])

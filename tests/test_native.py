@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from mktfhe_tpu.native import ChaCha20Stream, chacha20_words, have_native
-from mktfhe_tpu.native.chacha import _block_py
+from mktfhe.native import ChaCha20Stream, chacha20_words, have_native
+from mktfhe.native.chacha import _block_py
 
 
 def test_rfc7539_block_vector():
@@ -59,7 +59,7 @@ def test_secure_key_consumes_chacha():
     import jax
     import jax.numpy as jnp
 
-    from mktfhe_tpu.native.chacha import secure_key
+    from mktfhe.native.chacha import secure_key
 
     words = chacha20_words(bytes(32), b"\x00" * 12, 0, 2).astype(np.uint64)
     want_seed = int(words[0] | (words[1] << np.uint64(32)))
@@ -81,9 +81,9 @@ def test_keygen_consumes_256_bits_of_chacha():
     from a 256-bit-keyed ChaCha stream, src/ring/sampler.jl:1-34)."""
     import jax
 
-    from mktfhe_tpu.native.chacha import secure_streams
-    from mktfhe_tpu.schemes import ccs, cggi, kms, lmss
-    from mktfhe_tpu.schemes.presets import TINY_CGGI, TINY_KMS_2PARTY
+    from mktfhe.native.chacha import secure_streams
+    from mktfhe.schemes import ccs, cggi, kms, lmss
+    from mktfhe.schemes.presets import TINY_CGGI, TINY_KMS_2PARTY
 
     class Counting(ChaCha20Stream):
         def __init__(self):

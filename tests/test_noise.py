@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mktfhe_tpu.schemes import cggi
-from mktfhe_tpu.schemes.gates import gate_affine, lwe_encrypt_bit
-from mktfhe_tpu.utils.noise import noise_report
+from mktfhe.schemes import cggi
+from mktfhe.schemes.gates import gate_affine, lwe_encrypt_bit
+from mktfhe.utils.noise import noise_report
 
 from test_cggi import TINY
 

@@ -5,9 +5,18 @@ import numpy as np
 import pytest
 
 import __graft_entry__ as graft
+from mktfhe.schemes.params import KmsBlockParams
+
+# block-binary counterparts of graft's tiny presets (n = d * ell = 8)
+_BLOCK = dict(
+    d=4, ell=2, alpha=float(1 << 17), f=8, log_d=2, big_n=64, beta=4.0,
+    l_gsw=3, log_b_gsw=8, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8,
+)
+TINY = {"binary": graft._TINY_PARAMS, "block": KmsBlockParams(**_BLOCK, k=2)}
+TINY8 = {"binary": graft._TINY8_PARAMS, "block": KmsBlockParams(**_BLOCK, k=8)}
+variants = pytest.mark.parametrize("variant", ["binary", "block"])
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_dryrun_multichip():
     graft.dryrun_multichip(8)
 
@@ -19,13 +28,14 @@ def test_entry_compiles_and_runs():
     assert out.b.shape[0] == 4
 
 
-def test_sharded_matches_single_device():
+@variants
+def test_sharded_matches_single_device(variant):
     """The party/batch-sharded KMS bootstrap must be bit-identical to the
     single-device path (same exact integer arithmetic, different layout)."""
-    from mktfhe_tpu.parallel import kms_bootstrap_sharded, make_mesh, shard_scheme
-    from mktfhe_tpu.schemes import kms
+    from mktfhe.parallel import kms_bootstrap_sharded, make_mesh, shard_scheme
+    from mktfhe.schemes import kms
 
-    params = graft._TINY_PARAMS
+    params = TINY[variant]
     ct, scheme = graft._make_inputs(params, g=4)
     ref = kms.bootstrap(ct, scheme, params)
 
@@ -36,16 +46,17 @@ def test_sharded_matches_single_device():
     np.testing.assert_array_equal(np.asarray(out.a), np.asarray(ref.a))
 
 
-def test_shardmap_matches_single_device():
+@variants
+def test_shardmap_matches_single_device(variant):
     """Explicit shard_map phase 1 + all_gather: bit-identical too.
 
     g=4 on a (2,4) mesh leaves one local gate per batch shard, which does
     not divide by the party axis -- exercises the replicated-phase-2
     fallback."""
-    from mktfhe_tpu.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
-    from mktfhe_tpu.schemes import kms
+    from mktfhe.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
+    from mktfhe.schemes import kms
 
-    params = graft._TINY_PARAMS
+    params = TINY[variant]
     ct, scheme = graft._make_inputs(params, g=4)
     ref = kms.bootstrap(ct, scheme, params)
 
@@ -56,13 +67,14 @@ def test_shardmap_matches_single_device():
     np.testing.assert_array_equal(np.asarray(out.a), np.asarray(ref.a))
 
 
-def test_shardmap_gate_split_phase2():
+@variants
+def test_shardmap_gate_split_phase2(variant):
     """g=16 on a (2,4) mesh: 4 local gates split 2-ways across the party
     axis in phase 2 (the non-replicated merge), still bit-identical."""
-    from mktfhe_tpu.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
-    from mktfhe_tpu.schemes import kms
+    from mktfhe.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
+    from mktfhe.schemes import kms
 
-    params = graft._TINY_PARAMS
+    params = TINY[variant]
     ct, scheme = graft._make_inputs(params, g=16)
     ref = kms.bootstrap(ct, scheme, params)
 
@@ -73,77 +85,11 @@ def test_shardmap_gate_split_phase2():
     np.testing.assert_array_equal(np.asarray(out.a), np.asarray(ref.a))
 
 
-def test_shardmap_bm_engine():
-    """Batch-minor Pallas phase 1 under shard_map (interpret mode)."""
-    import jax.numpy as jnp
-
-    from mktfhe_tpu.kernels.batchminor import build_bm_kms_phase1
-    from mktfhe_tpu.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
-    from mktfhe_tpu.schemes import kms
-
-    params = graft._TINY_PARAMS
-    a = kms.crs(jax.random.key(0), params)
-    parties = [
-        kms.party_keygen(jax.random.key(1 + i), a, params) for i in range(params.k)
-    ]
-    scheme = kms.setup(a, [p[3] for p in parties], params)
-    ct, _ = graft._make_inputs(params, g=16)
-    ref = kms.bootstrap(ct, scheme, params)
-
-    bm_keys = build_bm_kms_phase1([p[3] for p in parties], params)
-    mesh = make_mesh(2, 4)
-    sh = shard_scheme(scheme, mesh)
-    out = kms_bootstrap_shardmap(
-        ct, sh, params, mesh, interpret=True, phase1_keys=bm_keys
-    )
-    np.testing.assert_array_equal(np.asarray(out.b), np.asarray(ref.b))
-    np.testing.assert_array_equal(np.asarray(out.a), np.asarray(ref.a))
-
-
-
-def test_shardmap_mx2_engine():
-    """Whole-rotation mx2 phase 1 under shard_map (interpret, N=128 ring)."""
-    import jax.numpy as jnp
-
-    from mktfhe_tpu.kernels.fused_mx2 import build_mx_kms_keys
-    from mktfhe_tpu.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
-    from mktfhe_tpu.schemes import kms
-    from mktfhe_tpu.schemes.gates import gate_affine, lwe_ith_encrypt_bit
-    from mktfhe_tpu.schemes.presets import TEST_PRESETS
-
-    params = TEST_PRESETS["TinyKMS2partyMX"]
-    a = kms.crs(jax.random.key(0), params)
-    parties = [
-        kms.party_keygen(jax.random.key(1 + i), a, params) for i in range(params.k)
-    ]
-    lwe_keys = [p[0] for p in parties]
-    scheme = kms.setup(a, [p[3] for p in parties], params)
-    g = 16
-    m = jnp.zeros((g,), dtype=bool)
-    ct1 = lwe_ith_encrypt_bit(
-        jax.random.key(91), m, 0, lwe_keys[0], params.alpha, params.k, (g,)
-    )
-    ct2 = lwe_ith_encrypt_bit(
-        jax.random.key(92), ~m, 1, lwe_keys[1], params.alpha, params.k, (g,)
-    )
-    ct = gate_affine(0, ct1, ct2)
-    ref = kms.bootstrap(ct, scheme, params)
-
-    mx_keys = build_mx_kms_keys([p[3] for p in parties], params)
-    mesh = make_mesh(2, 4)
-    sh = shard_scheme(scheme, mesh)
-    out = kms_bootstrap_shardmap(
-        ct, sh, params, mesh, interpret=True, phase1_keys=mx_keys
-    )
-    np.testing.assert_array_equal(np.asarray(out.b), np.asarray(ref.b))
-    np.testing.assert_array_equal(np.asarray(out.a), np.asarray(ref.a))
-
-
 def test_shardmap_party_only_mesh():
     """A party-only mesh (no batch axis) is valid (ADVICE round 2, #2)."""
     from jax.sharding import Mesh
-    from mktfhe_tpu.parallel import kms_bootstrap_shardmap, shard_scheme, make_mesh
-    from mktfhe_tpu.schemes import kms
+    from mktfhe.parallel import kms_bootstrap_shardmap, shard_scheme, make_mesh
+    from mktfhe.schemes import kms
 
     params = graft._TINY_PARAMS
     ct, scheme = graft._make_inputs(params, g=4)
@@ -156,16 +102,17 @@ def test_shardmap_party_only_mesh():
     np.testing.assert_array_equal(np.asarray(out.a), np.asarray(ref.a))
 
 
-def test_shardmap_sharded_phase2():
+@variants
+def test_shardmap_sharded_phase2(variant):
     """Party-sharded phase-2 residency (the PARALLEL.md k=32 plan, at k=8
     tiny on a (party=4, batch=2) mesh, 2 parties per device): rlk/pub/ksk
     live sharded, the owner psum-broadcasts its rlk rows per merge step,
     and the key switch reassembles from party-partials (psum b, concat a).
     Bit-identical to the replicated single-device path."""
-    from mktfhe_tpu.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
-    from mktfhe_tpu.schemes import kms
+    from mktfhe.parallel import kms_bootstrap_shardmap, make_mesh, shard_scheme
+    from mktfhe.schemes import kms
 
-    params = graft._TINY8_PARAMS
+    params = TINY8[variant]
     ct, scheme = graft._make_inputs(params, g=8)
     ref = kms.bootstrap(ct, scheme, params)
 

@@ -10,16 +10,16 @@ import pytest
 
 pytestmark = pytest.mark.slow
 
-from mktfhe_tpu.schemes import ccs, cggi, kms, lmss
-from mktfhe_tpu.schemes.gates import (
+from mktfhe.schemes import ccs, cggi, kms, lmss
+from mktfhe.schemes.gates import (
     gate_affine,
     lwe_decrypt_bit,
     lwe_decrypt_bit_mk,
     lwe_encrypt_bit,
     lwe_ith_encrypt_bit,
 )
-from mktfhe_tpu.schemes.presets import ALL_PRESETS, BLOCK_PARAM, CGGI_PARAM
-from mktfhe_tpu.utils.noise import noise_report
+from mktfhe.schemes.presets import ALL_PRESETS, BLOCK_PARAM, CGGI_PARAM
+from mktfhe.utils.noise import noise_report
 
 
 @pytest.mark.parametrize(

@@ -17,8 +17,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "scripts"))
 def test_tiny_kms_reference_emulation_decrypts():
     from ref_emulation import run_kms
 
-    from mktfhe_tpu.schemes.presets import TEST_PRESETS
+    from mktfhe.schemes.presets import TEST_PRESETS
 
-    rec = run_kms(2, 16, 16, preset=TEST_PRESETS["TinyKMS2partyMX"])
+    rec = run_kms(2, 16, 16, preset=TEST_PRESETS["TinyKMS2partyN128"])
     assert rec["decrypt_ok"] == rec["gates"], rec
     assert rec["margin_sigmas"] > 6, rec

@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mktfhe_tpu.ring import (
+from mktfhe.ring import (
     PRIMES,
     divbits,
     from_crt_u32,
@@ -26,6 +26,7 @@ from mktfhe_tpu.ring import (
     shoup,
     shoup_mul,
 )
+from mktfhe.ring.modring import mulmod_runtime
 
 rng = np.random.default_rng(0)
 
@@ -168,3 +169,65 @@ def test_negacyclic_roll():
     # X^2N == identity
     r2n = np.asarray(negacyclic_roll(v, 2 * n % (2 * n)))
     np.testing.assert_array_equal(r2n, np.asarray(v))
+
+
+def _edge_values(p):
+    """Residues and raw u32 words where the reductions change branch."""
+    return sorted({0, 1, 2, p // 2, p - 2, p - 1})
+
+
+def _check_mulhi(p):
+    vals = _edge_values(p) + [p, 2 * p, (1 << 31) - 1, 1 << 31, (1 << 32) - 1]
+    for a in vals:
+        for b in vals:
+            assert int(mulhi_u32(jnp.uint32(a), jnp.uint32(b))) == (a * b) >> 32, (a, b)
+
+
+def _check_shoup(p):
+    # w < p; the multiplicand may be any u32 (Harvey's bound)
+    for w in _edge_values(p):
+        w_sh = shoup(w, p)
+        for a in _edge_values(p) + [p, 4 * p - 1, (1 << 32) - 1]:
+            got = int(shoup_mul(jnp.uint32(w), jnp.uint32(w_sh), jnp.uint32(a), p))
+            assert got == w * a % p, (w, a)
+
+
+def _check_mulmod_runtime(p):
+    q = PRIMES.index(p)
+    crt = make_crt_plan(4)
+    for a in _edge_values(p):
+        for b in _edge_values(p):
+            got = int(
+                mulmod_runtime(
+                    jnp.uint32(a), jnp.uint32(b), p, crt.c32[q], crt.c32_shoup[q]
+                )
+            )
+            assert got == a * b % p, (a, b)
+
+
+@pytest.mark.parametrize("check", [_check_mulhi, _check_shoup, _check_mulmod_runtime],
+                         ids=["mulhi_u32", "shoup_mul", "mulmod_runtime"])
+@pytest.mark.parametrize("p", PRIMES)
+def test_modmul_edges_vs_python_ints(p, check):
+    """Every modular product the NTTs and phase 2 use, at the values where
+    a conditional subtraction or a carry changes, against Python ints."""
+    check(p)
+
+
+@pytest.mark.parametrize("npr", [2, 3, 4])
+@pytest.mark.parametrize("n", [16, 64, 256])
+def test_ntt_convolution_vs_schoolbook_per_prime(n, npr):
+    """fwd -> pointwise product -> inv is the negacyclic product mod each
+    prime, for full-range residues (not only small digits)."""
+    plan = make_plan(n, npr)
+    p = plan.primes.astype(np.uint64)[:, None]
+    a = (rng.integers(0, 1 << 32, size=(npr, n), dtype=np.uint64) % p).astype(np.uint32)
+    b = (rng.integers(0, 1 << 32, size=(npr, n), dtype=np.uint64) % p).astype(np.uint32)
+    ah, bh = fwd_ntt(jnp.array(a), plan), fwd_ntt(jnp.array(b), plan)
+    prod = (ah.astype(jnp.uint64) * bh.astype(jnp.uint64) % p).astype(jnp.uint32)
+    got = np.asarray(inv_ntt(prod, plan))
+    for q in range(npr):
+        want = _schoolbook_negacyclic(
+            [int(x) for x in a[q]], [int(x) for x in b[q]], int(plan.primes[q])
+        )
+        np.testing.assert_array_equal(got[q], np.array(want, dtype=np.uint32))

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mktfhe_tpu.schemes import cggi
-from mktfhe_tpu.schemes.cggi import CggiScheme
-from mktfhe_tpu.schemes.gates import gate_affine, lwe_encrypt_bit
-from mktfhe_tpu.utils import load, save
+from mktfhe.schemes import cggi
+from mktfhe.schemes.cggi import CggiScheme
+from mktfhe.schemes.gates import gate_affine, lwe_encrypt_bit
+from mktfhe.utils import load, save
 
 from test_cggi import TINY
 
